@@ -1,6 +1,6 @@
-"""raytrace_tpu — a TPU-native differentiable path tracer.
+"""raytrace_tpu — a differentiable path tracer in JAX.
 
-Built from scratch in JAX/XLA/Pallas with the full capability surface of
+Built from scratch in JAX/XLA with the full capability surface of
 the Haskell reference library (see SURVEY.md): primitives, meshes, BVH,
 volumes, ten materials, procedural + image textures, motion blur, thin-lens
 defocus, and importance-sampled light redirection with MIS — re-designed

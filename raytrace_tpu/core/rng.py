@@ -1,4 +1,4 @@
-"""Counter-based RNG for the TPU path tracer.
+"""Counter-based RNG for the path tracer.
 
 The reference threads a ``StdGen`` through every sampling site and
 pre-splits one generator per pixel (``Ray.hs:234-236``); here we use JAX's
@@ -6,7 +6,7 @@ counter-based threefry keys derived deterministically from
 ``(pixel_index, sample_index, bounce_depth, draw_site)``.  This makes every
 random draw a pure function of logical coordinates, so renders are
 bit-identical regardless of how the ray buffer is sharded across devices —
-the TPU-native answer to the reference's determinism-via-split-seeds.
+the array answer to the reference's determinism-via-split-seeds.
 
 The reference's rejection samplers (Core.hs:54-68) are replaced by
 *branchless, exactly equidistributed* transforms (no data-dependent loops,
@@ -16,20 +16,18 @@ which XLA cannot vectorize):
 """
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
 
 from .vecmath import DTYPE, normalize
 
-# Fallback switch: RT_RNG_THREEFRY=1 routes every uniform_block through a
-# full threefry pass (reference-quality stream, ~2.5x the cost) instead
-# of the fast counter-hash — for auditing statistical-quality concerns.
-USE_THREEFRY = bool(os.environ.get("RT_RNG_THREEFRY"))
-# RT_RNG_PAIR16=0 disables the two-uniforms-per-hash-word fast path
-# (see uniform_block) and restores 24-bit mantissas.
-USE_PAIR16 = os.environ.get("RT_RNG_PAIR16", "1") != "0"
+# Auditing switch: True routes every uniform_block through a full
+# threefry pass (reference-quality stream, ~2.5x the cost) instead of the
+# fast counter-hash — for checking statistical-quality concerns.
+USE_THREEFRY = False
+# False disables the two-uniforms-per-hash-word fast path (see
+# uniform_block) and restores 24-bit mantissas.
+USE_PAIR16 = True
 
 
 def base_key(seed: int):
@@ -96,13 +94,13 @@ def uniform_block(keys, n: int, dtype=DTYPE):
     is ``finalize(finalize(k0 + c*phi) ^ k1)`` where ``finalize`` is a
     full-avalanche 32-bit mixer (Murmur3-style, improved constants).
 
-    ~10 integer ops per uniform vs threefry's ~40 — RNG was 37% of a
-    wavefront iteration on v5e.  Each (pixel, sample, depth, column)
+    ~10 integer ops per uniform vs threefry's ~40.  Each (pixel, sample,
+    depth, column)
     still maps injectively into the hash input, so streams stay
     deterministic and shard-invariant; statistical quality is validated
     by tests/test_rng.py (collision-freedom over the full bench key
     domain, column serial correlation, pairwise uniformity) and the
-    golden-parity renders.  ``RT_RNG_THREEFRY=1`` swaps in the threefry
+    golden-parity renders.  :data:`USE_THREEFRY` swaps in the threefry
     stream as an auditing fallback."""
     if USE_THREEFRY:
         return uniform_block_threefry(keys, n, dtype)
@@ -110,13 +108,13 @@ def uniform_block(keys, n: int, dtype=DTYPE):
     k0 = kd[..., 0:1]
     k1 = kd[..., 1:2]
     if USE_PAIR16:
-        # Two 16-bit uniforms per hash word: integer hashing was ~30% of
-        # a wavefront iteration at 14 columns/lane/bounce, and every
+        # Two 16-bit uniforms per hash word: halves the integer hashing
+        # at 14 columns/lane/bounce, and every
         # consumer is a Monte-Carlo sampling transform where 2^-16
         # resolution is far below the estimator noise floor (golden
         # parity + the test_rng batteries both hold on the half-words of
-        # the full-avalanche mix).  RT_RNG_PAIR16=0 restores 24-bit
-        # mantissas; RT_RNG_THREEFRY=1 the reference-quality stream.
+        # the full-avalanche mix).  USE_PAIR16 = False restores 24-bit
+        # mantissas; USE_THREEFRY the reference-quality stream.
         # NOTE for consumers: with 16-bit resolution a draw is EXACTLY
         # 0.0 with probability 2^-16 (~60 zero draws per 2^18-lane
         # bounce) — never divide by a uniform or take log(u) without a
@@ -157,8 +155,7 @@ def _finalize2(h, k1):
 def unit_vector_from_uniforms(u, v):
     """Uniform unit vectors from two U[0,1) draws — z = 1-2u is uniform in
     [-1,1], azimuth 2*pi*v; exact spherical uniformity with only
-    sqrt/sincos (no erfinv: ~10x cheaper than Gaussian normalization on
-    the VPU)."""
+    sqrt/sincos (no erfinv, unlike Gaussian normalization)."""
     z = 1.0 - 2.0 * u
     r = jnp.sqrt(jnp.maximum(1.0 - z * z, 0.0))
     phi = (2.0 * jnp.pi) * v

@@ -1,10 +1,10 @@
-"""Core vector / interval / AABB math for the TPU path tracer.
+"""Core vector / interval / AABB math for the path tracer.
 
-TPU-native re-design of the reference's ``Graphics.Ray.Core``
+Array re-design of the reference's ``Graphics.Ray.Core``
 (``/root/reference/src/Graphics/Ray/Core.hs``): the reference works on single
 ``V3 Double`` values; here every helper is written against ``jnp`` arrays whose
 *last* axis is the 3-vector axis, so the same code path serves one ray or a
-million rays (struct-of-arrays, vectorized on the VPU).
+million rays.
 
 Reference parity notes (file:line cites into /root/reference):
   * ``reflect``         — Core.hs:49-51
@@ -16,11 +16,19 @@ from __future__ import annotations
 
 import math
 
+import jax
 import jax.numpy as jnp
 
-# Default compute dtype. TPUs are happiest in f32 (the reference uses f64 on
-# CPU; f32 + scale-aware epsilons reproduces its images statistically).
+# Default compute dtype (the reference uses f64 on CPU; f32 + scale-aware
+# epsilons reproduces its images statistically).
 DTYPE = jnp.float32
+
+# Every f32 contraction on the render and gradient path states this
+# precision.  At DEFAULT a GPU may run an f32 matmul in TF32 (~10 mantissa
+# bits): at Cornell's coordinates (~555) plane distances and gathered
+# vertices would be off by ~0.3 scene units, and ids carried through a
+# one-hot matmul would no longer round-trip exactly.
+HIGHEST = jax.lax.Precision.HIGHEST
 
 INFINITY = float("inf")
 
@@ -40,29 +48,26 @@ def vdot0(a, b):
     return jnp.sum(a * b, axis=-1)
 
 
-def onehot_rows(idx, n: int):
-    """One-hot [R, n] selector for ``idx[R]`` (f32).
+def matmul(a, b):
+    """``a @ b`` at :data:`HIGHEST` precision."""
+    return jnp.matmul(a, b, precision=HIGHEST)
 
-    Differentiable small-table gathers should go through
-    :func:`gather_rows` instead of ``table[idx]``: the backward of a TPU
-    gather is a scatter-add (~1 ms per 131k updates — XLA re-sorts the
-    indices every call), while the backward of ``onehot @ table`` is
-    ``onehot.T @ ct`` — an MXU matmul, ~20x cheaper at n <= a few hundred.
-    """
-    import jax.nn
+
+def onehot_rows(idx, n: int):
+    """One-hot [R, n] selector for ``idx[R]`` (f32), for
+    :func:`gather_rows`: its backward is the matmul ``onehot.T @ ct``
+    instead of a scatter-add."""
     return jax.nn.one_hot(idx, n, dtype=DTYPE)
 
 
 def gather_rows(oh, table):
     """Gather ``table[idx]`` given ``oh = onehot_rows(idx, n)``.
 
-    ``table`` is [n] or [n, k]; returns [R] / [R, k].  Scatter-free
-    backward (see :func:`onehot_rows`)."""
-    if table.ndim == 1:
-        return oh @ table
-    if table.ndim == 2:
-        return oh @ table
-    flat = oh @ table.reshape(table.shape[0], -1)
+    ``table`` is [n] or [n, ...]; returns [R] / [R, ...].  At HIGHEST
+    precision every output is exactly one table entry."""
+    if table.ndim <= 2:
+        return matmul(oh, table)
+    flat = matmul(oh, table.reshape(table.shape[0], -1))
     return flat.reshape((oh.shape[0],) + table.shape[1:])
 
 

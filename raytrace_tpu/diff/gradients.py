@@ -87,12 +87,9 @@ def render_loss_wavefront(scene_params, scene_statics, settings, key,
     (render/integrator.py:trace_wavefront_diff) — ~10x less wasted work
     than the bounded-depth scan for deep max_depth settings.
 
-    ``remat=False`` stores per-iteration residuals instead of
-    rematerializing each bounce in the backward.  With the megakernel
-    custom-VJP bounce (diff/mega_bounce.py) the residuals are compact
-    (bounce inputs + winner index) and remat=False is ~1.25x FASTER on
-    v5e (46.5M vs 36.9M rays/s at 2^18 lanes x 196 iters, ~3 GB); on the
-    XLA fallback path the residuals are much fatter and remat=True wins."""
+    ``remat=False`` stores per-iteration residuals of the whole bounce
+    instead of rematerializing each bounce in the backward: faster when
+    they fit in device memory (compiled ``memory_analysis()`` says)."""
     from ..render.integrator import trace_wavefront_diff
 
     scene = combine(scene_params, scene_statics)

@@ -6,7 +6,7 @@ result: Absorb / Scatter color dir / HemisphereF brdf / SphereF phase.  The
 4-way split is the contract that lets the *integrator* own importance
 sampling (redirection/MIS, Ray.hs:187-224).
 
-TPU re-design: materials are integer-tagged rows in a struct-of-arrays
+Array re-design: materials are integer-tagged rows in a struct-of-arrays
 table.  The integrator classifies each lane by tag into the same four
 behaviour classes and evaluates everything branchlessly (masked selects).
 The ten reference materials (Material.hs:41-129) map to ten tags.
@@ -19,7 +19,7 @@ from ..textures.textures import Texture, constant_texture
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 # Material kinds (tags)
 MAT_LIGHT = 0          # emit texture color, absorb (Material.hs:42-44)
@@ -94,30 +94,11 @@ def anisotropic(g: float, texture: Texture) -> Material:
 
 
 class MaterialTable(struct.PyTreeNode):
-    """Interned materials, plus the compile-time *behavior* collapse used
-    by the full-bounce megakernel: materials that differ only in their
-    scalar param and/or constant-texture color share one behavior row
-    (the color and param ride per-primitive in the packed prim table
-    instead — demo1's 460 interned constant-color materials collapse to
-    3 behaviors, making the scene megakernel-eligible).
-
-    ``behavior_of[M]`` maps material -> behavior id; ``behavior_rep[B]``
-    maps behavior -> a representative material id.  The collapse is
-    decided at scene-compile time from concrete values; re-optimizing a
-    merged material's texture id after compilation is unsupported
-    (values — colors, params — may change freely: they are re-gathered
-    per launch)."""
+    """Interned materials: one row per distinct Material descriptor."""
     kind: jnp.ndarray   # i32[M]
     tex: jnp.ndarray    # i32[M] texture id
     param: jnp.ndarray  # f32[M]
     kinds_present: tuple = struct.field(pytree_node=False, default=())
-    behavior_of: jnp.ndarray | None = None   # i32[M]
-    behavior_rep: jnp.ndarray | None = None  # i32[B]
-    n_behaviors: int = struct.field(pytree_node=False, default=0)
-    # texture KINDS used by light-source materials (static): the fused
-    # shade kernel applies emission albedo in-kernel, so rich-texture
-    # lights make a scene ineligible (integrator.fused_shade_eligible)
-    light_tex_kinds: tuple = struct.field(pytree_node=False, default=())
 
 
 def compile_materials(materials, texture_index) -> MaterialTable:
@@ -133,31 +114,7 @@ def compile_materials(materials, texture_index) -> MaterialTable:
         param[i] = m.param
     present = tuple(sorted(set(int(k) for k in kind[: len(materials)])))
 
-    # behavior collapse: constant-texture materials key on kind only
-    # (color + param become per-prim columns); others on (kind, tex id)
-    from ..textures.textures import TEX_CONSTANT
-    beh_ids: dict = {}
-    behavior_of = np.zeros(n, np.int32)
-    behavior_rep: list[int] = []
-    for i, m in enumerate(materials):
-        if m.texture.kind == TEX_CONSTANT:
-            key = (int(m.kind), "const")
-        else:
-            key = (int(m.kind), "tex", int(texture_index[m.texture]))
-        if key not in beh_ids:
-            beh_ids[key] = len(behavior_rep)
-            behavior_rep.append(i)
-        behavior_of[i] = beh_ids[key]
-    if not behavior_rep:
-        behavior_rep = [0]
-
     return MaterialTable(
         kind=jnp.asarray(kind), tex=jnp.asarray(tex), param=jnp.asarray(param),
         kinds_present=present,
-        behavior_of=jnp.asarray(behavior_of),
-        behavior_rep=jnp.asarray(np.asarray(behavior_rep, np.int32)),
-        n_behaviors=len(beh_ids) if materials else 0,
-        light_tex_kinds=tuple(sorted({int(m.texture.kind)
-                                      for m in materials
-                                      if m.kind == MAT_LIGHT})),
     )

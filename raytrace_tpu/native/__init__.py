@@ -1,14 +1,16 @@
 """Native (C++) runtime components, loaded via ctypes.
 
-The compute path is JAX/XLA/Pallas; the host-side runtime around it uses
+The compute path is JAX/XLA; the host-side runtime around it uses
 native code where Python is the bottleneck.  Currently: the .obj mesh
-loader (objparse.cpp) — ~11x the pure-Python parser on mesh-scale files (measured: 200k tris, 10 MB).
+loader (objparse.cpp) — ~11x the pure-Python parser on mesh-scale
+files (measured on the CPU: 200k tris, 10 MB).
 
 Shared objects build lazily with g++ on first use and are cached next to
 the source keyed by a source hash, so a source edit rebuilds and a stale
-.so is never used.  Everything degrades gracefully: no compiler, a
-failed build, or ``RT_NO_NATIVE=1`` falls back to the Python
-implementations with identical semantics (tests assert parity).
+.so is never used.  Everything degrades gracefully: no compiler or a
+failed build falls back to the Python implementations with identical
+semantics (tests assert parity); ``parse_obj(native=False)`` asks for
+the Python parser.
 """
 from __future__ import annotations
 
@@ -24,8 +26,6 @@ _LIBS: dict[str, ctypes.CDLL | None] = {}
 
 def _build_and_load(name: str) -> ctypes.CDLL | None:
     """Compile ``<name>.cpp`` into a cached .so and dlopen it."""
-    if os.environ.get("RT_NO_NATIVE"):
-        return None
     if name in _LIBS:
         return _LIBS[name]
     lib = None

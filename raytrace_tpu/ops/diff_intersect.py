@@ -1,27 +1,30 @@
-"""Differentiable nearest-hit with a Pallas forward pass.
+"""Differentiable nearest-hit with a winner-only backward.
 
 The backward pass of ray-scene intersection only needs gradients through
 the *winning* primitive of each ray (the argmin is piecewise-constant in
 the parameters, and t/normal/uv of non-winners don't affect the output).
-So: run the fused Pallas megakernel forward (ops/pallas/intersect_kernel),
-and in the custom VJP recompute the winner's hit analytically in XLA and
-differentiate that tiny function — the vjp of the gather scatters
-parameter cotangents back into the primitive buffers automatically.
-
-This is the "custom VJP" pattern from the Pallas guide applied to the
-intersection stage; it makes forward+backward rendering use the same
-fast kernel as inference.
+So: run the plain nearest-hit scan forward (ops/intersect.py), and in the
+custom VJP recompute the winner's hit analytically and differentiate that
+tiny function — the vjp of the gather scatters parameter cotangents back
+into the primitive buffers automatically.  The backward therefore does
+not depend on the forward's intersection engine.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 
-from ..core.vecmath import DTYPE, gather_rows, onehot_rows, vdot0
-from ..scene.types import PRIM_SPHERE, PRIM_TRIANGLE, Primitives
+from ..core.vecmath import DTYPE, gather_rows, onehot_rows
+from ..scene.types import Primitives
 from .intersect import (
-    INF, _single_prim_t_rows, make_hit_record_rows,
+    INF, _single_prim_t_rows, make_hit_record, make_hit_record_rows,
+    nearest_hit_t,
 )
+
+# Above this many primitive rows the winner gather is a plain take
+# (scatter-add backward) instead of the [R, N] one-hot matmul.  Not
+# measured on the card yet (ROADMAP A5).
+_ONEHOT_MAX_ROWS = 8192
 
 
 def _winner_record(floats, ints, o, d, time, idx, has_motion, t_min,
@@ -29,15 +32,13 @@ def _winner_record(floats, ints, o, d, time, idx, has_motion, t_min,
     """Differentiable recompute of the hit for a known winner ``idx``.
 
     Per-ray primitive rows are gathered with ONE one-hot matmul over the
-    concatenated float tables, so the vjp of the gather is a matmul
-    (``oh.T @ ct``) rather than six separate TPU scatter-adds — the
-    scatters were ~50x the cost of everything else in the backward
-    wavefront (see core/vecmath.py:onehot_rows).
+    concatenated float tables (up to ``_ONEHOT_MAX_ROWS`` rows), so the
+    vjp of the gather is a matmul (``oh.T @ ct``) rather than six
+    separate scatter-adds (see core/vecmath.py:onehot_rows).
 
     Returns ``(t_safe, valid, rec)`` where ``t_safe`` is 1.0 on
     miss/invalid lanes (NaN-free grads) and ``rec`` the full HitRecord.
     """
-    import os
     p0, e1, e2, uvs, mv0, mv1 = floats
     kind, mat = ints
     n = kind.shape[0]
@@ -45,13 +46,7 @@ def _winner_record(floats, ints, o, d, time, idx, has_motion, t_min,
     parts = [p0, e1, e2, uvs.reshape(n, 6)]
     if has_motion:
         parts += [mv0, mv1]
-    # Measured on the bunny (4,992 rows, 2^17 lanes): the [R, N] one-hot
-    # matmul still BEATS a direct gather + scatter-add backward (2.71 vs
-    # 2.63 M fwd+bwd rays/s) — XLA does not materialize the full one-hot.
-    # The take path exists for far larger tables where it must win on
-    # bandwidth; crossover not yet reached at mega scale.
-    onehot_max = int(os.environ.get("RT_DIFF_ONEHOT_MAX", "8192"))
-    if n <= onehot_max:
+    if n <= _ONEHOT_MAX_ROWS:
         oh = onehot_rows(pi, n)
         allf = gather_rows(oh, jnp.concatenate(parts, axis=1))
     else:
@@ -85,26 +80,8 @@ def _winner_outputs(floats, ints, o, d, time, idx, has_motion, t_min,
     return t_safe, rec.normal, rec.uv
 
 
-def winner_surface_hit(floats, ints, o, d, time, idx, has_motion, t_min,
-                       has_box=False, sphere_rots=()):
-    """Differentiable surface-hit tuple for a KNOWN winner index.
-
-    Returns ``(t, idx, normal, front, uv, mat)`` matching the
-    ``_surface_hit`` contract of render/integrator.py (``t`` is +inf on
-    miss), reconstructed with one one-hot gather and NO intersection
-    loop.  Used by diff/mega_bounce.py: the Pallas forward saves the
-    winner index, and the backward re-derives the bounce through this.
-    """
-    t_safe, valid, rec = _winner_record(floats, ints, o, d, time, idx,
-                                        has_motion, t_min, has_box=has_box,
-                                        sphere_rots=sphere_rots)
-    t = jnp.where(valid, t_safe, INF)
-    return t, idx, rec.normal, rec.front, rec.uv, rec.mat
-
-
-def make_diff_surface_hit(has_motion: bool, t_min: float, use_pallas: bool,
-                          clustered: bool = True, has_box: bool = False,
-                          kind_segments=None, kinds=None, sphere_rots=()):
+def make_diff_surface_hit(has_motion: bool, t_min: float,
+                          has_box: bool = False, sphere_rots=()):
     """Build a differentiable surface-hit fn over float primitive buffers.
 
     Returns ``hit(floats, ints_f, o, d, time) -> (t, idx, normal, front,
@@ -121,60 +98,7 @@ def make_diff_surface_hit(has_motion: bool, t_min: float, use_pallas: bool,
         prims = Primitives(kind=kind, p0=p0, e1=e1, e2=e2, uvs=uvs, mat=mat,
                            mv0=mv0, mv1=mv1, n=kind.shape[0],
                            has_motion=has_motion, has_box=has_box,
-                           kind_segments=kind_segments,
                            sphere_rots=sphere_rots)
-        if use_pallas:
-            from .pallas.allpairs_kernel import (
-                MIN_PRIMS, allpairs_nearest_record,
-            )
-            from .pallas.intersect_kernel import (
-                pack_clusters, pack_prims, pallas_nearest_record,
-            )
-            r = o.shape[0]
-            g = r // 128
-            resh = lambda x: x.reshape(g, 128)
-            tbl = pack_prims(prims)
-            # mesh-scale forward rides the all-pairs broadcast engine
-            # exactly like the non-diff path (integrator._surface_hit) —
-            # the custom-VJP backward reconstructs from the winner index
-            # and is engine-independent
-            if kind_segments is not None and MIN_PRIMS <= kind.shape[0]:
-                t, idx, nx, ny, nz, fr, uu, vv, m = \
-                    allpairs_nearest_record(
-                        tbl, resh(o[:, 0]), resh(o[:, 1]), resh(o[:, 2]),
-                        resh(d[:, 0]), resh(d[:, 1]), resh(d[:, 2]),
-                        resh(time), n_prims=kind.shape[0], t_min=t_min,
-                        has_motion=has_motion, segments=kind_segments,
-                        ctbl=pack_clusters(prims))
-            else:
-                ctbl = pack_clusters(prims) if clustered else None
-                t, idx, nx, ny, nz, fr, uu, vv, m = pallas_nearest_record(
-                    tbl, ctbl,
-                    resh(o[:, 0]), resh(o[:, 1]), resh(o[:, 2]),
-                    resh(d[:, 0]), resh(d[:, 1]), resh(d[:, 2]),
-                    resh(time), n_prims=kind.shape[0], t_min=t_min,
-                    has_motion=has_motion, has_box=has_box,
-                    segments=kind_segments, kinds=kinds)
-            fl = lambda x: x.reshape(r)
-            flags = fl(fr)
-            front = (flags & 1).astype(bool)
-            is_sphere = (flags & 2).astype(bool)
-            normal = jnp.stack([fl(nx), fl(ny), fl(nz)], axis=-1)
-            from .intersect import apply_sphere_rotations
-            outward = normal * jnp.where(front, 1.0, -1.0)[:, None]
-            outward = apply_sphere_rotations(outward, fl(idx), sphere_rots)
-            xz_ok = outward[:, 0] ** 2 + outward[:, 2] ** 2 > 1e-12
-            sx = jnp.where(xz_ok, outward[:, 0], 0.0)
-            sz = jnp.where(xz_ok, outward[:, 2], 1.0)
-            su = jnp.arctan2(sx, sz) / (2.0 * jnp.pi) + 0.5
-            sv = jnp.arccos(
-                jnp.clip(-outward[:, 1], -1.0 + 1e-6, 1.0 - 1e-6)) / jnp.pi
-            uv = jnp.stack([
-                jnp.where(is_sphere, su, fl(uu)),
-                jnp.where(is_sphere, sv, fl(vv)),
-            ], axis=-1)
-            return fl(t), fl(idx), normal, front, uv, fl(m)
-        from .intersect import make_hit_record, nearest_hit_t
         r = o.shape[0]
         tmin = jnp.full((r,), t_min, DTYPE)
         tmax = jnp.full((r,), INF, DTYPE)

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
-from ..core.vecmath import DTYPE, vdot0
+from ..core.vecmath import HIGHEST, vdot0
 from ..scene.types import Ellipsoids
 
 INF = jnp.inf
@@ -40,8 +40,10 @@ def ellipsoid_nearest(ells: Ellipsoids, o, d, time, t_min: float):
                   + time[:, None, None] * (ells.mv1 - ells.mv0)[None, :, :])
         rel = rel - mshift
     # object-space ray (direction NOT renormalized: t stays world t)
-    op = jnp.einsum("rek,eik->rei", rel, ells.inv)          # A^-1 rel
-    dp = jnp.einsum("rk,eik->rei", d, ells.inv)             # A^-1 d
+    op = jnp.einsum("rek,eik->rei", rel, ells.inv,          # A^-1 rel
+                    precision=HIGHEST)
+    dp = jnp.einsum("rk,eik->rei", d, ells.inv,             # A^-1 d
+                    precision=HIGHEST)
 
     oc = ells.center[None, :, :] - op                       # [R,E,3]
     a = jnp.sum(dp * dp, -1)
@@ -74,7 +76,8 @@ def ellipsoid_nearest(ells: Ellipsoids, o, d, time, t_min: float):
 
     # world normal: forward linear map (Geometry.hs:393 caveat), normalized
     fwd_w = ells.fwd[ei]                                    # [R,3,3]
-    n_world = jnp.einsum("rik,rk->ri", fwd_w, outward_obj)
+    n_world = jnp.einsum("rik,rk->ri", fwd_w, outward_obj,
+                         precision=HIGHEST)
     n_norm = jnp.sqrt(jnp.maximum(jnp.sum(n_world * n_world, -1), 1e-30))
     n_world = n_world / n_norm[:, None]
     normal = jnp.where(front[:, None], n_world, -n_world)

@@ -11,11 +11,11 @@ The semantics mirror the reference primitives exactly:
 * motion     — time-lerped translation applied to the primitive
                (Geometry.hs:447-456)
 
-TPU re-design (not a port): intersection is computed for a whole
+Array re-design (not a port): intersection is computed for a whole
 [R rays x C primitives] tile at once.  The plane test is rewritten as three
 scalar triple products against per-primitive precomputed vectors
 (a = p_rel . cross(v, n_s) etc.), so the entire tile is a handful of
-[R,3]x[C,3] contractions plus elementwise ops — dense VPU/MXU work with no
+[R,3]x[C,3] contractions plus elementwise ops — dense work with no
 divergence, no gathers in the inner loop.  The "two roots" contract lets
 *one* candidate computation serve both nearest-hit queries and the
 entry/exit queries of constant media (render/volumes.py) without
@@ -30,9 +30,9 @@ import math
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
-from ..core.vecmath import DTYPE, normalize, vdot0
+from ..core.vecmath import DTYPE, HIGHEST, matmul, normalize, vdot0
 from ..scene.types import (
     BVH, PRIM_BOX, PRIM_PARALLELOGRAM, PRIM_SPHERE, PRIM_TRIANGLE,
     Primitives,
@@ -42,7 +42,7 @@ INF = jnp.inf
 DENOM_EPS = 1e-8  # planeShape denom guard (Geometry.hs:126)
 
 # Budget for [R, C] intersection tiles (elements). Governs the dense-mode
-# primitive chunk size so HBM working set stays bounded.
+# primitive chunk size so the device-memory working set stays bounded.
 _TILE_BUDGET = 1 << 23
 
 
@@ -59,9 +59,11 @@ class HitRecord(struct.PyTreeNode):
 
 
 def _bdot(x, y):
-    """[R,3] x [C,3] -> [R,C] contraction (XLA chooses VPU/MXU layout)."""
+    """[R,3] x [C,3] -> [R,C] contraction in full f32 (core/vecmath.py:
+    HIGHEST)."""
     return jax.lax.dot_general(
-        x, y, (((1,), (1,)), ((), ())), preferred_element_type=DTYPE
+        x, y, (((1,), (1,)), ((), ())), precision=HIGHEST,
+        preferred_element_type=DTYPE
     )
 
 
@@ -225,7 +227,7 @@ def _chunk_size(n_prims: int, n_rays: int) -> int:
 
 def dense_nearest(prims: Primitives, o, d, time, tmin, tmax):
     """Nearest hit by scanning all primitives in [R, C] tiles, carrying a
-    running (t, prim_index) minimum — the TPU equivalent of the reference
+    running (t, prim_index) minimum — the array form of the reference
     ``group`` fold with shrinking t_max (Geometry.hs:336-347)."""
     n = prims.kind.shape[0]
     r = o.shape[0]
@@ -333,8 +335,7 @@ def _single_prim_t_rows(rows, has_motion, o, d, time, tmin, tmax,
     ``(kind, p0, e1, e2, mv0, mv1)`` — each [R] / [R,3].
 
     Split out so the differentiable path can gather rows via one-hot
-    matmuls (TPU scatter in the gather's backward costs ~1 ms per 131k
-    updates; the matmul transpose is ~20x cheaper)."""
+    matmuls (ops/diff_intersect.py)."""
     kind, p0, e1, e2, mv0, mv1 = rows
     if has_motion:
         shift = mv0 + time[:, None] * (mv1 - mv0)
@@ -398,7 +399,7 @@ def apply_sphere_rotations(outward, idx, sphere_rots):
     (Geometry.hs:382-391 + 100-104), i.e. in object space, so a rotated
     image-textured sphere shows a rotated texture.  Rotated spheres are
     rare (demo2 has exactly one), so this is an unrolled compare+select
-    per listed row — pure VPU work, no gathers.  Only UV evaluation uses
+    per listed row — elementwise work, no gathers.  Only UV evaluation uses
     the result; shading normals stay world-space.
     """
     if not sphere_rots:
@@ -407,7 +408,7 @@ def apply_sphere_rotations(outward, idx, sphere_rots):
     for row, r9 in sphere_rots:
         rot = jnp.asarray(r9, DTYPE).reshape(3, 3)
         sel = (idx == row)[:, None]
-        out = jnp.where(sel, outward @ rot.T, out)
+        out = jnp.where(sel, matmul(outward, rot.T), out)
     return out
 
 
@@ -431,8 +432,7 @@ def make_hit_record_rows(rows, has_motion, mat, idx, o, d, time,
                          t, has_box: bool = False,
                          sphere_rots: tuple = ()) -> HitRecord:
     """:func:`make_hit_record` from pre-gathered per-ray rows
-    ``(kind, p0, e1, e2, mv0, mv1, uvs)`` (see ``_single_prim_t_rows``
-    for why: one-hot gathers keep the backward scatter-free)."""
+    ``(kind, p0, e1, e2, mv0, mv1, uvs)`` (see ``_single_prim_t_rows``)."""
     hit = idx >= 0
     kind, p0, e1, e2, mv0, mv1, uvs_rows = rows
     if has_motion:

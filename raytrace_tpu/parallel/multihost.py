@@ -1,11 +1,10 @@
 """Multi-host rendering: ``jax.distributed`` + the sharded wavefront.
 
 The reference is a single shared-memory process (SURVEY.md §2.2 — its only
-parallelism is massiv's per-pixel spark scheduler, Ray.hs:238).  The
-TPU-native equivalent scales the same embarrassingly-parallel pixel
-dimension across *hosts*: every process joins a ``jax.distributed`` job,
-builds one global mesh over all chips (dp rides ICI within a slice and DCN
-across hosts), and runs the shard_map persistent wavefront
+parallelism is massiv's per-pixel spark scheduler, Ray.hs:238).  Here the
+same embarrassingly-parallel pixel dimension scales across *hosts*: every
+process joins a ``jax.distributed`` job, builds one global mesh over all
+devices, and runs the shard_map persistent wavefront
 (parallel/sharding.py) on its addressable shard of the pixel axis.  The
 scene is tiny (<= a few thousand primitives in every reference scene) and
 is replicated; the only cross-host traffic is the final image assembly.
@@ -39,8 +38,7 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Join (or start) a multi-host JAX job.
 
-    With no arguments, relies on cluster auto-detection (TPU pods, GKE,
-    SLURM).  No-op when the job is single-process and no coordinator is
+    With no arguments, relies on cluster auto-detection (e.g. SLURM).  No-op when the job is single-process and no coordinator is
     given.
     """
     if (coordinator_address is None and num_processes is None
@@ -56,9 +54,9 @@ def initialize(coordinator_address: str | None = None,
 
 
 def global_mesh() -> Mesh:
-    """1-D ("dp", "sp"=1) mesh over every chip of every host, ordered so
-    the dp axis is contiguous per host (pixel blocks ride ICI within a
-    host, DCN only between hosts)."""
+    """1-D ("dp", "sp"=1) mesh over every device of every host, ordered
+    so the dp axis is contiguous per host (pixel blocks cross the network
+    only between hosts)."""
     devs = np.asarray(jax.devices()).reshape(len(jax.devices()), 1)
     return Mesh(devs, ("dp", "sp"))
 

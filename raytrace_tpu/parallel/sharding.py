@@ -1,4 +1,4 @@
-"""Multi-device sharding: the TPU answer to the reference's per-pixel
+"""Multi-device sharding: the device-mesh form of the reference's per-pixel
 CPU spark scheduler (Ray.hs:234-238; SURVEY.md §2.2).
 
 Parallelism map (path-tracing analogues of ML strategies):
@@ -7,7 +7,7 @@ Parallelism map (path-tracing analogues of ML strategies):
   the image's pixels.  Scene/BVH/material buffers are replicated.
 * **sp** — "sequence"/sample parallel over *samples-per-pixel*: the spp
   axis is a real array axis sharded across devices; the per-pixel mean is
-  a cross-device reduction XLA lowers to an all-reduce over ICI.
+  a cross-device reduction XLA lowers to an all-reduce.
 * **pp/ep** — documented N/A for a path tracer (SURVEY.md §2.2): the
   bounce loop is sequential per ray and there is no MoE analogue.
 
@@ -17,7 +17,7 @@ mesh shape, including (1, 1) — the determinism test the reference gets
 from its pre-split seed matrix.
 
 Gradients: parameter (scene) inputs are replicated; their gradients are
-partial sums on each device, which XLA all-reduces (psum over ICI)
+partial sums on each device, which XLA all-reduces (psum)
 automatically during the backward pass — the "grads all-reduced
 overlapped with backward" story of the BASELINE north-star, with zero
 hand-written communication.
@@ -82,8 +82,8 @@ def sharded_wavefront_render_fn(mesh: Mesh, n_pix: int, spp: int):
 
     Returns ``render(scene, settings, key) -> acc[n_pix_padded, 3]``
     radiance sums (divide by ``spp``); slice ``[:n_pix]`` for the image.
-    Scaling story (BASELINE north-star): dp is embarrassingly parallel
-    over ICI/DCN — see tools/bench_scaling.py for the efficiency harness.
+    dp is embarrassingly parallel — see tools/bench_scaling.py for the
+    scaling-efficiency harness.
     """
     from jax import shard_map
     from ..render.integrator import LANE_ALIGN
@@ -123,7 +123,9 @@ def sharded_wavefront_render_fn(mesh: Mesh, n_pix: int, spp: int):
 def sharded_train_step_fn(mesh: Mesh, settings: CameraSettings,
                           lr: float = 1e-2, optimizer=None,
                           spp: int | None = None,
-                          n_iters: int | None = None):
+                          n_iters: int | None = None,
+                          remat: bool = True,
+                          schedule: tuple | None = None):
     """Jitted sharded inverse-rendering training step on the PRODUCTION
     estimator: the differentiable regenerative wavefront
     (diff/gradients.py:render_loss_wavefront), not the bounded
@@ -138,15 +140,20 @@ def sharded_train_step_fn(mesh: Mesh, settings: CameraSettings,
     scene leaf (psum'd across the mesh by XLA), parameter update on the
     replicated scene.
 
+    ``remat`` and ``schedule`` pass through to
+    :func:`..diff.gradients.render_loss_wavefront`.
+
     ``optimizer``: any optax ``GradientTransformation``; default is plain
     SGD at ``lr``.  Scene parameters span wildly different scales (albedo
     O(1), geometry O(scene units)) with Monte-Carlo gradient noise, so a
     scale-invariant optimizer (``optax.adam``) is strongly recommended for
     real inverse rendering; the optimizer state is carried *inside* the
     returned step function via a functional (state-in/state-out) variant
-    ``step_opt(scene, opt_state, ...) -> (loss, scene', opt_state')``
-    exposed as ``step.with_state``; ``step.init(scene)`` builds the
-    initial state.
+    ``step_opt(scene, opt_state, ...) -> (loss, scene', opt_state',
+    samples_completed)`` exposed as ``step.with_state``;
+    ``step.init(scene)`` builds the initial state.  ``samples_completed``
+    is the fraction of the requested samples the iteration budget
+    finished (should be 1.0; raise ``n_iters`` if it drops).
     """
     if optimizer is None:
         import optax
@@ -163,25 +170,25 @@ def sharded_train_step_fn(mesh: Mesh, settings: CameraSettings,
         target = jax.lax.with_sharding_constraint(target, lane_spec)
         params, statics = partition(scene)
         n_s = spp if spp is not None else sample_ids.shape[0]
-        (loss, _frac), grads = jax.value_and_grad(
+        (loss, frac), grads = jax.value_and_grad(
             render_loss_wavefront, has_aux=True)(
             params, statics, settings, key, pixel_ids, target,
-            spp=n_s, n_iters=n_iters)
+            spp=n_s, n_iters=n_iters, remat=remat, schedule=schedule)
         # None leaves are empty pytree nodes — optax and tree_map skip them
         updates, opt_state = optimizer.update(grads, opt_state, params)
         new_params = jax.tree_util.tree_map(lambda p, u: p + u,
                                             params, updates)
-        return loss, combine(new_params, statics), opt_state
+        return loss, combine(new_params, statics), opt_state, frac
 
     step_opt_jit = jax.jit(
-        step_opt, out_shardings=(replicated(mesh),) * 3)
+        step_opt, out_shardings=(replicated(mesh),) * 4)
 
     def init(scene: Scene):
         params, _ = partition(scene)
         return optimizer.init(params)
 
     def step(scene: Scene, key, pixel_ids, sample_ids, target):
-        loss, new_scene, _ = step_opt_jit(
+        loss, new_scene, _, _ = step_opt_jit(
             scene, init(scene), key, pixel_ids, sample_ids, target)
         return loss, new_scene
 

@@ -17,7 +17,7 @@ from typing import Callable
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core import rng
 from ..core.vecmath import DTYPE, normalize, vcross
@@ -155,8 +155,7 @@ def generate_rays(s: CameraSettings, frame, pixel_ids, keys):
 def generate_ray_components(s: CameraSettings, frame, pixel_ids, u5):
     """Like :func:`generate_rays_from_uniforms` but computed and returned
     as seven 1-D component arrays (ox, oy, oz, dx, dy, dz, time) — the
-    wavefront keeps its state as SoA 1-D arrays because [R, 3] arrays
-    tile catastrophically on TPU (minor dim 3 in an (8, 128) tile)."""
+    wavefront keeps its lane state as SoA 1-D arrays."""
     w = s.image_width
     i = (pixel_ids % w).astype(DTYPE)
     j = (pixel_ids // w).astype(DTYPE)

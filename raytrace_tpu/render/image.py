@@ -12,7 +12,6 @@ Mirrors the reference IO surface (Ray.hs:241-260):
 from __future__ import annotations
 
 import numpy as np
-from PIL import Image
 
 
 def _srgb_encode(x: np.ndarray) -> np.ndarray:
@@ -28,6 +27,7 @@ def _srgb_decode(x: np.ndarray) -> np.ndarray:
 
 def read_image(path: str) -> np.ndarray:
     """Read an image into a linear-RGB float64 [H, W, 3] array."""
+    from PIL import Image
     img = Image.open(path).convert("RGB")
     data = np.asarray(img, np.float64) / 255.0
     return _srgb_decode(data)
@@ -35,6 +35,7 @@ def read_image(path: str) -> np.ndarray:
 
 def _to_png(path: str, encoded: np.ndarray):
     data = (np.clip(encoded, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    from PIL import Image
     Image.fromarray(data, "RGB").save(path)
 
 

@@ -1,4 +1,4 @@
-"""Top-level render driver: the TPU equivalent of ``raytrace`` (Ray.hs:121).
+"""Top-level render driver: the wavefront form of ``raytrace`` (Ray.hs:121).
 
 Replaces the reference's per-pixel spark fan-out (``A.makeArray A.Par``,
 Ray.hs:238) with the *persistent wavefront* (render/integrator.py): one
@@ -29,6 +29,9 @@ from .integrator import (
 # Below this many pixels, the pixel-stationary scheduler can't fill the
 # vector lanes; use the work-queue scheduler instead.
 _STATIONARY_MIN_PIXELS = 16384
+# Media whose boundary has at least this many rows (mesh-boundary media)
+# also take the ray-binned driver.  Not measured on the card (ROADMAP A7).
+MESH_VOLUME_MIN_ROWS = 64
 
 
 def render_accumulate(scene: Scene, settings: CameraSettings, seed: int = 0,
@@ -41,7 +44,8 @@ def render_accumulate(scene: Scene, settings: CameraSettings, seed: int = 0,
     *sum*; ``acc / spp_total`` is the image.  Pass a previous ``(acc,
     spp_done)`` to resume.  ``spp_chunk`` bounds work per device launch;
     images larger than ``max_band`` pixels render in row-aligned bands
-    (bounds the wavefront's HBM working set — lane state is ~100 B/pixel).
+    (bounds the wavefront's device-memory working set — lane state is
+    ~100 B/pixel).
     """
     h = settings.image_height
     w = settings.image_width
@@ -52,7 +56,7 @@ def render_accumulate(scene: Scene, settings: CameraSettings, seed: int = 0,
     if acc is None:
         acc = jnp.zeros((n_pix, 3), DTYPE)
 
-    # Row-aligned pixel bands bound the wavefront's HBM working set
+    # Row-aligned pixel bands bound the wavefront's working set
     # (lane state is ~100 B/pixel).  Equal-row bands except possibly the
     # last, so at most two program shapes compile.
     if n_pix > max_band >= w:
@@ -71,10 +75,9 @@ def render_accumulate(scene: Scene, settings: CameraSettings, seed: int = 0,
     if spp_chunk is None:
         if stationary:
             # The drain tail (lanes whose pixels drew long paths finish
-            # last) is paid once per launch and amortizes over samples:
-            # Cornell 200 spp occupancy is 0.71 in one launch vs 0.52 in
-            # 50-spp chunks.  So launch everything at once unless the
-            # caller asked for progress/checkpoint granularity.
+            # last) is paid once per launch and amortizes over samples,
+            # so launch everything at once unless the caller asked for
+            # progress/checkpoint granularity.
             spp_chunk = min(spp, 512)
         else:
             # Each launch ends with a low-occupancy drain tail (long
@@ -88,8 +91,8 @@ def render_accumulate(scene: Scene, settings: CameraSettings, seed: int = 0,
         s0 = jnp.asarray(spp_done + done, jnp.int32)
         if stationary:
             # Pixel rotation averages per-PIXEL mean path-length imbalance
-            # (sky lanes finish their samples long before fog/glass lanes;
-            # demo2 tail occupancy 0.58 without it).  Largest divisor of
+            # (sky lanes finish their samples long before fog/glass
+            # lanes).  Largest divisor of
             # the chunk <= 8: more chunks average better but each costs a
             # masked roll per iteration.  Per-sample path-length noise
             # (Cornell-style tails) is handled by rr_depth, not rotation.
@@ -123,30 +126,15 @@ def _queue_fn(scene, settings, key, acc, s0, n_pix, spp, n_lanes):
 
 def _stationary_fn(scene, settings, key, acc, s0, n_pix, spp, rotate_k=1,
                    pixel_offset=0):
-    import os
-    # Mesh-boundary media also take the binned driver: the volume
-    # crossing kernel's chunk-AABB consensus only fires on spatially
-    # coherent rows, and in-medium lanes cluster under binning —
-    # pawn measured 24.7 s stationary vs 12.0 s sorted (round 4).
-    # Small SURFACE tables without such media keep the stationary
-    # driver (demo2: sorted measured net-slower, argsort > occupancy
-    # win at 1.5k rows).
-    from ..ops.pallas.volume_kernel import BCAST_MIN_ROWS
+    """Mesh-scale scenes (and mesh-boundary media) take the ray-binned
+    work-queue driver, the rest the pixel-stationary one.  Both give the
+    same image (absolute (pixel, sample) RNG keys); ``rotate_k`` applies
+    only to the stationary driver."""
     mesh_volumes = (scene.volumes is not None
                     and scene.volumes.prims.kind.shape[0]
-                    >= BCAST_MIN_ROWS)
-    if (os.environ.get("RT_SORTED_WAVEFRONT", "1") != "0"
-            and (scene.prims.kind.shape[0] >= SORT_MIN_PRIMS
-                 or mesh_volumes)
+                    >= MESH_VOLUME_MIN_ROWS)
+    if ((scene.prims.kind.shape[0] >= SORT_MIN_PRIMS or mesh_volumes)
             and scene.bvh is None):
-        # Default for mesh-scale scenes since round 3: per-iteration
-        # ray binning restores kernel-block consensus on bounce rays
-        # (122 -> 83 ms/iter) and queue regeneration keeps occupancy
-        # ~1 instead of the pixel-stationary tail's 0.26 — bigmesh
-        # end-to-end 20.3 s -> 6.6 s.  ``rotate_k`` does not apply
-        # (queue lanes are not pixel-bound); image is bit-identical
-        # (absolute (pixel, sample) RNG keys).  RT_SORTED_WAVEFRONT=0
-        # opts out.
         return trace_wavefront_sorted(scene, settings, key, n_pix, spp,
                                       acc, sample_offset=s0,
                                       pixel_offset=pixel_offset)

@@ -6,7 +6,7 @@ entry is the first boundary crossing if it is front-facing, else the ray
 starts inside and entry is t_min; exit is the next crossing — then scatter
 at ``entry - log(U)/density`` if that lies before the exit.
 
-TPU re-design: instead of nesting stochastic geometry inside traversal,
+Array re-design: instead of nesting stochastic geometry inside traversal,
 every volume produces an *independent scatter candidate t* per ray, and
 the integrator takes the global argmin against the surface hit.  This is
 distribution-equivalent to the reference's shrinking-t_max group fold
@@ -19,13 +19,11 @@ second crossing without materializing an [R, all-crossings] buffer.
 """
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
 
 from ..core.vecmath import DTYPE
-from ..ops.intersect import INF, chunk_roots, _chunk_size
+from ..ops.intersect import INF, _bdot, _chunk_size, chunk_roots
 from ..scene.types import PRIM_BOX, PRIM_SPHERE, Primitives, Volumes
 
 
@@ -36,10 +34,8 @@ def _crossing_scan2(prims: Primitives, start: int, count: int, o, d, time,
 
     Returns ``(t1, front1, t2)``: the reference finds the first hit, then
     the next hit strictly beyond it (Geometry.hs:306-315) — identical to
-    the two smallest crossings overall.  No argmin + take_along_axis —
-    a TPU gather with per-call-varying indices costs ~1 ms per 100k
-    lanes; the front flag of the first minimal entry is selected with a
-    cumsum first-match mask.
+    the two smallest crossings overall.  The front flag of the first
+    minimal entry is selected with a cumsum first-match mask.
     """
     r = o.shape[0]
     c = _chunk_size(count, r)
@@ -60,8 +56,7 @@ def _crossing_scan2(prims: Primitives, start: int, count: int, o, d, time,
         # far root exits; planes are front iff approached from normal side
         two_root = (kind == PRIM_SPHERE) | (kind == PRIM_BOX)
         cp = jnp.cross(sl(prims.e1), sl(prims.e2))
-        denom = jax.lax.dot_general(
-            d, cp, (((1,), (1,)), ((), ())), preferred_element_type=DTYPE)
+        denom = _bdot(d, cp)
         fr1 = jnp.where(two_root[None, :], True, denom < 0.0)
         fr2 = jnp.zeros_like(fr1)
 
@@ -146,66 +141,3 @@ def volume_candidates(volumes: Volumes, o, d, time, t_min, u_scatter,
                       jnp.stack([s[1] for s in segs], axis=1),
                       jnp.stack([s[2] for s in segs], axis=1))
     return out
-
-
-def volume_candidates_pallas(volumes: Volumes, o, d, time, t_min,
-                             u_scatter, t_min_scalar: float,
-                             interpret: bool = False,
-                             use_bcast: bool | None = None):
-    """:func:`volume_candidates` with the crossings computed by the
-    Pallas kernel (ops/pallas/volume_kernel.py) — one launch for all
-    volumes instead of a chunked XLA scan per volume (~10 ms/iteration
-    on demo2's two media at 90k lanes).  Non-differentiable (the diff
-    path keeps the XLA scan).
-
-    Tables at mesh scale (>= BCAST_MIN_ROWS boundary rows) take the
-    *broadcast* crossing kernel — prims on sublanes, rays on lanes, the
-    all-pairs intersect restructuring — which replaces the scalar
-    per-prim fori_loop that cost ~10 ms per 131k-lane iteration on
-    pawn's 1200-tri boundary.  ``use_bcast`` forces the choice (tests)."""
-    from ..ops.pallas.intersect_kernel import pack_prims
-    from ..ops.pallas.volume_kernel import (
-        BCAST_MIN_ROWS, pack_chunk_boxes, pack_sub_boxes,
-        pallas_volume_crossings, pallas_volume_crossings_bcast,
-    )
-    r = o.shape[0]
-    g = r // 128
-    resh = lambda x: x.reshape(g, 128)
-    vtbl = pack_prims(volumes.prims)
-    slices = tuple(zip(volumes.starts, volumes.counts))
-    if use_bcast is None:
-        use_bcast = (volumes.prims.kind.shape[0] >= BCAST_MIN_ROWS
-                     and not os.environ.get("RT_NO_VOL_BCAST"))
-    if use_bcast:
-        cbox = pack_chunk_boxes(volumes.prims, slices)
-        outs = pallas_volume_crossings_bcast(
-            vtbl, cbox, resh(o[:, 0]), resh(o[:, 1]), resh(o[:, 2]),
-            resh(d[:, 0]), resh(d[:, 1]), resh(d[:, 2]), resh(time),
-            slices=slices, t_min=t_min_scalar,
-            has_motion=volumes.prims.has_motion,
-            has_box=volumes.prims.has_box,
-            # 64-row sub-consensus: wins the coherent primary-ray probe
-            # (21.3 -> 18.0 ms/360k) but LOSES pawn end-to-end (12.7 vs
-            # 11.9 s — in-medium bounce rays visit most sub-pieces, so
-            # the cond tax nets negative); opt-in for A/B re-runs
-            sbox=(pack_sub_boxes(volumes.prims, slices)
-                  if os.environ.get("RT_VOL_SUBC") else None),
-            interpret=interpret)
-    else:
-        outs = pallas_volume_crossings(
-            vtbl, resh(o[:, 0]), resh(o[:, 1]), resh(o[:, 2]),
-            resh(d[:, 0]), resh(d[:, 1]), resh(d[:, 2]), resh(time),
-            slices=slices, t_min=t_min_scalar,
-            has_motion=volumes.prims.has_motion,
-            has_box=volumes.prims.has_box, interpret=interpret)
-    cands = []
-    valids = []
-    for v in range(volumes.n_volumes):
-        t1 = outs[3 * v].reshape(r)
-        front1 = outs[3 * v + 1].reshape(r) > 0.5
-        t2 = outs[3 * v + 2].reshape(r)
-        c, valid = _candidate_from_crossings(volumes, v, t1, front1, t2,
-                                             t_min, u_scatter[:, v])
-        cands.append(c)
-        valids.append(valid)
-    return jnp.stack(cands, axis=1), jnp.stack(valids, axis=1)

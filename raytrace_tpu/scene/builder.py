@@ -10,7 +10,7 @@ flattens into device buffers.  Materials are attached with
 Geometry.hs:44-47); like the Haskell functor, the *outermost* attachment
 wins for every leaf below it.
 
-Batch constructors (``spheres``, ``cuboids``) exist because on TPU a scene
+Batch constructors (``spheres``, ``cuboids``) exist because a scene
 with 400 procedural spheres should be one vectorized row-block, not 400
 Python objects.
 """

@@ -8,8 +8,8 @@ depth-first order with escape ("skip") pointers, so device-side traversal
 is a single stackless loop (see render/intersect.py and SURVEY.md §3.3).
 
 Leaves hold up to ``leaf_size`` primitives, re-ordered to be contiguous —
-on TPU, intersecting a handful of primitives per leaf vectorizes better
-than the reference's one-object leaves.
+intersecting a handful of primitives per leaf vectorizes better than the
+reference's one-object leaves.
 """
 from __future__ import annotations
 

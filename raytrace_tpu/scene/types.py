@@ -2,7 +2,7 @@
 
 The reference represents a scene as a *closure tree* — nested Haskell
 functions built at scene-construction time (``Geometry m a``,
-Geometry.hs:42).  On TPU, the scene is instead compiled to flat indexed
+Geometry.hs:42).  Here the scene is instead compiled to flat indexed
 buffers: one tagged row per primitive, an interned material/texture table,
 an optional flat threaded BVH, and a separate buffer for volume-boundary
 primitives.  Everything is a pytree, so the whole scene can be donated to
@@ -12,7 +12,7 @@ to primitive params / material colors directly through these leaves).
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..materials.materials import MaterialTable
 from ..textures.textures import TextureTable
@@ -24,7 +24,7 @@ PRIM_PARALLELOGRAM = 1  # p0 = q, e1 = u, e2 = v        (Geometry.hs:147-151)
 PRIM_TRIANGLE = 2   # p0, e1 = p1-p0, e2 = p2-p0, uvs   (Geometry.hs:169-176)
 PRIM_BOX = 3        # p0 = lo, e1 = hi: axis-aligned box as ONE slab-test row
 #                     (the reference lowers cuboids to 6 parallelograms,
-#                     Geometry.hs:154-166; on TPU the branchless prim scan
+#                     Geometry.hs:154-166; the branchless prim scan
 #                     pays per ROW, so an axis-aligned cuboid as a single
 #                     slab test is ~6x less scan work — demo2's 400 ground
 #                     cuboids are 400 rows instead of 2400).  Rotated /
@@ -34,7 +34,7 @@ PRIM_BOX = 3        # p0 = lo, e1 = hi: axis-aligned box as ONE slab-test row
 
 class Primitives(struct.PyTreeNode):
     """Tagged primitive rows (SoA).  Transforms are baked into the params at
-    compile time (TPU-first: no per-ray inverse transform; see
+    compile time (no per-ray inverse transform; see
     scene/compile.py), so rows are always in world space.  ``mv0``/``mv1``
     are motion-blur displacements at time 0 / 1 (Geometry.hs:447-456)."""
     kind: jnp.ndarray   # i32[N]
@@ -50,20 +50,14 @@ class Primitives(struct.PyTreeNode):
     # static "any PRIM_BOX rows" flag so scenes without boxes compile
     # zero box code into the (branchless, pays-for-every-kind) prim scans
     has_box: bool = struct.field(pytree_node=False, default=False)
-    # static kind segmentation for the clustered Pallas loop: rows are
-    # reordered kind-major (spatial BVH order preserved within each kind,
-    # each segment padded to the 64-row cluster width) and this records
-    # ``((kind, cluster_start, cluster_end), ...)`` so every cluster runs
-    # an intersection loop specialized to its ONE kind — sphere clusters
-    # compile no plane/box code and vice versa.  None = unsegmented
-    # (BVH mode / tiny scenes / hand-built Primitives).
+    # static kind segmentation: rows are reordered kind-major (spatial
+    # BVH order preserved within each kind, each segment padded to the
+    # 64-row cluster width) and this records
+    # ``((kind, cluster_start, cluster_end), ...)``.  Segmented tables
+    # pad inside each segment, so scans cover the whole table
+    # (render/integrator.py:_n_scan_prims).  None = unsegmented (BVH
+    # mode / tiny scenes / hand-built Primitives).
     kind_segments: tuple | None = struct.field(pytree_node=False,
-                                               default=None)
-    # static set of primitive kinds present (pad rows excluded): lets the
-    # flat Pallas prim loop compile ONLY the branches a scene needs
-    # (Cornell is parallelogram-only — skipping the sphere branch nearly
-    # halves the per-prim VPU work).  None = unknown (compile all).
-    kinds_present: tuple | None = struct.field(pytree_node=False,
                                                default=None)
     # static ``((row, (r00..r22)), ...)`` world->object rotations for the
     # (few) sphere rows baked with a non-identity rotation: sphere UV must
@@ -115,7 +109,7 @@ class Ellipsoids(struct.PyTreeNode):
     with its Euclidean-only normal caveat, Geometry.hs:382-391).  Kept in
     their own small buffer, intersected in object space and merged after
     the main primitive scan (render/integrator.py:_surface_hit) — scenes
-    without them pay nothing, and the Pallas engines stay untouched.
+    without them pay nothing.
 
     ``center``/``radius`` are object-space; ``fwd``/``inv`` the linear
     part A / A^-1; ``shift`` the translation; normals are transformed by

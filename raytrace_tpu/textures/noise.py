@@ -1,11 +1,10 @@
-"""3D Perlin gradient noise, vectorized for TPU.
+"""3D Perlin gradient noise, vectorized over whole ray batches.
 
 Re-design of the reference ``Graphics.Ray.Noise`` (Noise.hs:15-92): same
 algorithm — period-256 lattice, three XOR-combined permutation tables, 256
 precomputed unit-vector gradients, smoothstep-weighted trilinear blend of the
 eight corner gradient dot products — but evaluated for a whole ``[..., 3]``
-batch of points at once with gathers from small constant tables (which XLA
-keeps resident on-chip).
+batch of points at once.
 
 The permutation tables are the reference's fixed tables
 (:mod:`._perlin_tables`, Noise.hs:52-92).  The gradient table in the
@@ -17,16 +16,12 @@ same distribution, same noise statistics, different concrete pattern
 (pixel parity with the reference is statistical, not bitwise; see
 SURVEY.md §7 "hard parts" (b)).
 
-Performance: the naive form gathers 4 tables x 8 corners per call; with
-7-octave fractal + 7-octave turbulence textures, that was ~450 gathers
-per wavefront bounce — 45 of 65 ms of the demo2 bounce.  Tables were
-first replaced by one-hot matmuls (~0.1 ms each; a TPU gather from even
-a 256-table costs ~1 ms per 90k lanes), but 7-octave marble still spent
-~4.2 ms/iteration in 42 of them.  Since the reference's *gradient*
-bitstream is unreproducible anyway (above), the permutation tables buy
-no parity — so the default lattice hash is pure arithmetic (a murmur
-avalanche of the period-256 lattice coordinates): zero table traffic,
-same noise statistics.  ``perlin_noise(..., use_tables=True)`` keeps the
+Table traffic: the naive form looks up 4 tables x 8 corners per call,
+~450 lookups per bounce with 7-octave fractal + turbulence textures.
+Since the reference's *gradient* bitstream is unreproducible anyway
+(above), the permutation tables buy no parity — so the default lattice
+hash is pure arithmetic (a murmur avalanche of the period-256 lattice
+coordinates): zero table traffic, same noise statistics.  ``perlin_noise(..., use_tables=True)`` keeps the
 reference-table path (tests / bit-level table checks).
 """
 from __future__ import annotations
@@ -34,13 +29,12 @@ from __future__ import annotations
 import numpy as np
 import jax.numpy as jnp
 
-from ..core.vecmath import DTYPE, vdot0
+from ..core.vecmath import DTYPE, matmul
 from ._perlin_tables import PERMX, PERMY, PERMZ
 
 # [256, 2] f32 per axis: column 0 = perm, column 1 = perm shifted by one —
 # one one-hot matmul yields both lattice-corner lookups (values <= 255 are
-# exact in f32).  An XLA TPU gather of 90k lanes from a 256-table costs
-# ~1 ms; the one-hot matmul runs on the MXU at ~0.1 ms.
+# exact in f32 at HIGHEST precision).
 # Built lazily: creating device arrays at import time would initialize
 # the XLA backend, which must not happen before
 # ``jax.distributed.initialize`` in multi-process jobs (multihost.py).
@@ -62,7 +56,7 @@ def _perm_pair(axis: str, idx):
     import jax.nn
     flat = (idx & 255).reshape(-1)
     oh = jax.nn.one_hot(flat, 256, dtype=jnp.float32)
-    both = oh @ _perm2(axis)                      # [R, 2]
+    both = matmul(oh, _perm2(axis))               # [R, 2]
     both = both.astype(jnp.int32).reshape(idx.shape + (2,))
     return both[..., 0], both[..., 1]
 
@@ -83,7 +77,7 @@ def _hash_gradient(h):
     u = u ^ (u >> 15)
     u = u * jnp.uint32(0x735A2D97)
     u = u ^ (u >> 13)
-    # Mosaic has no uint32 -> f32 cast; both halves fit int32 exactly
+    # both halves fit int32 exactly
     u1 = (u & jnp.uint32(0xFFFF)).astype(jnp.int32).astype(DTYPE) \
         * DTYPE(1.0 / 65536.0)
     u2 = (u >> jnp.uint32(16)).astype(jnp.int32).astype(DTYPE) \
@@ -124,9 +118,8 @@ def _blend_corners(hx, hy, hz, fx, fy, fz):
 def perlin_noise_soa(px, py, pz):
     """Arithmetic-hash Perlin noise on SoA components.
 
-    Pure elementwise arithmetic (no tables, no gathers) — traceable
-    inside Pallas TPU kernels (ops/pallas/texture_kernel.py) and
-    identical to ``perlin_noise(p, use_tables=False)``.
+    Pure elementwise arithmetic (no tables, no gathers); identical to
+    ``perlin_noise(p, use_tables=False)``.
     """
     ipx, ipy, ipz = jnp.floor(px), jnp.floor(py), jnp.floor(pz)
     fx, fy, fz = px - ipx, py - ipy, pz - ipz
@@ -135,22 +128,6 @@ def perlin_noise_soa(px, py, pz):
         c = c.astype(jnp.int32)
         hs.append((_ava(c, mul), _ava(c + 1, mul)))
     return _blend_corners(hs[0], hs[1], hs[2], fx, fy, fz)
-
-
-def fractal_noise_soa(depth: int, px, py, pz):
-    """SoA :func:`fractal_noise` (arithmetic hash only)."""
-    total = jnp.zeros_like(px)
-    coef = 1.0
-    for _ in range(depth):
-        total = total + coef * perlin_noise_soa(px, py, pz)
-        coef *= 0.5
-        px, py, pz = px * 2.0, py * 2.0, pz * 2.0
-    return total
-
-
-def turbulence_soa(depth: int, px, py, pz):
-    """SoA :func:`turbulence` (arithmetic hash only)."""
-    return jnp.abs(fractal_noise_soa(depth, px, py, pz))
 
 
 def perlin_noise(p, use_tables: bool = False):

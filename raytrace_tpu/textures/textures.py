@@ -2,12 +2,12 @@
 
 The reference represents a texture as an opaque Haskell closure
 ``Point3 -> UV -> Color`` (Texture.hs:15) with seven constructors
-(Texture.hs:18-79).  Closures don't exist on a TPU; instead every texture in
-a scene is *interned* into a struct-of-arrays table (one row per texture)
-and evaluated branchlessly for whole ray batches, gathering per-lane
-parameters by texture id.  Only the texture kinds actually present in the
-scene are computed (static specialization — scene topology is static under
-jit), then combined with ``jnp.where``.
+(Texture.hs:18-79).  Closures don't exist on a device; instead every
+texture in a scene is *interned* into a struct-of-arrays table (one row
+per texture) and evaluated branchlessly for whole ray batches, gathering
+per-lane parameters by texture id.  Only the texture kinds actually
+present in the scene are computed (static specialization — scene topology
+is static under jit), then combined with ``jnp.where``.
 
 Image textures are packed into a single padded atlas ``[n_images, H, W, 3]``
 so a batch of lookups is one gather.  Arbitrary user closures are supported
@@ -22,7 +22,7 @@ from typing import Any, Callable, Sequence
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core.vecmath import DTYPE, vdot0
 from .noise import fractal_noise, turbulence
@@ -132,7 +132,6 @@ class TextureTable(struct.PyTreeNode):
     kinds_present: tuple = struct.field(pytree_node=False, default=())
     noise_octaves: tuple = struct.field(pytree_node=False, default=())
     custom_fns: tuple = struct.field(pytree_node=False, default=())
-    marble_rows: tuple = struct.field(pytree_node=False, default=())
 
 
 def compile_textures(textures: Sequence[Texture]) -> TextureTable:
@@ -190,8 +189,6 @@ def compile_textures(textures: Sequence[Texture]) -> TextureTable:
         f1=jnp.asarray(f1), i0=jnp.asarray(i0), images=jnp.asarray(atlas),
         image_hw=jnp.asarray(hw), kinds_present=kinds_present,
         noise_octaves=tuple(sorted(octaves)), custom_fns=tuple(custom_fns),
-        marble_rows=tuple(i for i, t in enumerate(textures)
-                          if t.kind == TEX_MARBLE),
     )
 
 
@@ -199,47 +196,8 @@ def compile_textures(textures: Sequence[Texture]) -> TextureTable:
 # Batched evaluation
 # ---------------------------------------------------------------------------
 
-def _image_gather(images, img_id, j, i, force_pallas_bwd: bool = False,
-                  interpret: bool = False):
-    """Atlas texel gather whose BACKWARD is the scatter-free Pallas
-    row x column one-hot factorization for small atlases
-    (ops/pallas/image_grad_kernel.py; docs/ROADMAP.md §8) — the XLA
-    scatter backward measured 4.25x the constant-texture train step at
-    2^17 lanes.  Large atlases / unaligned lanes keep the plain gather
-    (scatter backward)."""
-    import jax as _jax
-    from ..ops.pallas.image_grad_kernel import (
-        image_grad_eligible, image_grad_pallas,
-    )
-    eligible = (img_id.ndim == 1
-                and (force_pallas_bwd
-                     or image_grad_eligible(images, img_id.shape[0])))
-    if not eligible:
-        return images[img_id, j, i]
-    n_img, h_, w_, _ = images.shape
-
-    @_jax.custom_vjp
-    def gather(images, idf, jf, if_):
-        return images[idf.astype(jnp.int32), jf.astype(jnp.int32),
-                      if_.astype(jnp.int32)]
-
-    def fwd(images, idf, jf, if_):
-        return gather(images, idf, jf, if_), (idf, jf, if_)
-
-    def bwd(res, g):
-        idf, jf, if_ = res
-        g_img = image_grad_pallas(idf, jf, if_, g, n_img=n_img, h=h_,
-                                  w=w_, interpret=interpret)
-        return (g_img, jnp.zeros_like(idf), jnp.zeros_like(jf),
-                jnp.zeros_like(if_))
-
-    gather.defvjp(fwd, bwd)
-    return gather(images, img_id.astype(DTYPE), j.astype(DTYPE),
-                  i.astype(DTYPE))
-
-
 def eval_texture(table: TextureTable, tex_ids, points, uvs,
-                 onehot: bool = False, marble_pallas: bool = False):
+                 onehot: bool = False):
     """Evaluate texture ``tex_ids[...]`` at ``points[..., 3]`` / ``uvs[..., 2]``.
 
     Branchless over lanes; only kinds present in the scene are computed.
@@ -247,12 +205,6 @@ def eval_texture(table: TextureTable, tex_ids, points, uvs,
     ``onehot=True`` (differentiable path, 1-D ``tex_ids`` only) gathers
     the float parameter tables with a single one-hot matmul so the
     backward is scatter-free (core/vecmath.py:onehot_rows).
-
-    ``marble_pallas=True`` (production TPU path, flat 128-aligned lanes)
-    evaluates marble stripes in a Pallas kernel whose blocks skip the
-    7-octave turbulence when no lane in the block samples that texture
-    (ops/pallas/texture_kernel.py) — not differentiable, so the diff
-    path keeps the XLA form.
     """
     kind = table.kind[tex_ids]
     if onehot:
@@ -294,7 +246,7 @@ def eval_texture(table: TextureTable, tex_ids, points, uvs,
         # i = floor(u*w) mod w ; j = floor((1-v)*h) mod h (Texture.hs:36-42)
         i = jnp.mod(jnp.floor(uvs[..., 0] * w).astype(jnp.int32), jnp.maximum(w, 1))
         j = jnp.mod(jnp.floor((1.0 - uvs[..., 1]) * h).astype(jnp.int32), jnp.maximum(h, 1))
-        texel = _image_gather(table.images, img_id, j, i)
+        texel = table.images[img_id, j, i]
         out = jnp.where((kind == TEX_IMAGE)[..., None], texel, out)
 
     if TEX_NOISE in table.kinds_present:
@@ -314,18 +266,12 @@ def eval_texture(table: TextureTable, tex_ids, points, uvs,
         out = jnp.where((kind == TEX_NOISE)[..., None], noise_col, out)
 
     if TEX_MARBLE in table.kinds_present:
-        from ..ops.pallas.texture_kernel import (
-            marble_eligible, marble_stripe_pallas,
-        )
-        if marble_pallas and marble_eligible(table, points):
-            stripe = marble_stripe_pallas(table, tex_ids, points)
-        else:
-            direction = _v0()
-            shift = _v1()
-            freq = _f0()
-            sin_arg = freq * vdot0(direction, points)
-            nz = 10.0 * turbulence(7, 0.25 * freq[..., None] * points + shift)
-            stripe = 0.5 + 0.5 * jnp.sin(sin_arg + nz)  # Texture.hs:72-79
+        direction = _v0()
+        shift = _v1()
+        freq = _f0()
+        sin_arg = freq * vdot0(direction, points)
+        nz = 10.0 * turbulence(7, 0.25 * freq[..., None] * points + shift)
+        stripe = 0.5 + 0.5 * jnp.sin(sin_arg + nz)  # Texture.hs:72-79
         out = jnp.where((kind == TEX_MARBLE)[..., None], stripe[..., None], out)
 
     if TEX_CUSTOM in table.kinds_present:

@@ -1,145 +1,62 @@
-"""Engine-selection observability (VERDICT r4 weak #7).
+"""Engine-selection observability.
 
-Every driver/kernel choice in the framework is a *static* predicate of
-(scene, settings, lane count, env) — the same conjunctions the drivers
+Every driver/engine choice in the framework is a *static* predicate of
+(scene, settings, lane count) — the same conditions the drivers
 evaluate at trace time (render/render.py:_stationary_fn,
-render/integrator.py:bounce_kernel_eligible / fused_shade_eligible,
-diff/fused_iter.py:fused_iter_eligible, diff/lane_replay.py:
-replay_eligible).  Failing any one condition silently drops 10-40x of
-throughput; :func:`engine_report` makes the selection inspectable so
-tests and benchmarks can ASSERT which engine serves a scene class
-instead of discovering a fallback in a wall-clock regression.
+ops/intersect.py:nearest_hit_t, render/integrator.py:_surface_hit).
+:func:`engine_report` makes the selection inspectable so tests and
+benchmarks can ASSERT which engine serves a scene class instead of
+discovering a fallback in a wall-clock regression.
 
 The report mirrors the drivers' decisions; it does not influence them.
-`tests/test_engines.py` pins the expected engine per scene class and the
-mirror is exercised against the real drivers' choices.
+`tests/test_engines.py` pins the expected engine per scene class.
 """
 from __future__ import annotations
 
-import os
-
 
 def engine_report(scene, s, *, n_pix: int | None = None,
-                  lanes: int | None = None, diff: bool = False,
-                  interpret: bool = False) -> dict:
+                  diff: bool = False) -> dict:
     """Which engine serves each stage of a render of ``scene``.
 
     Returns a dict with keys:
 
     * ``driver`` — ``queue`` | ``sorted`` | ``stationary`` (forward) or
       ``diff-wavefront`` (``diff=True``)
-    * ``forward`` — ``fused-iter-megakernel`` | ``bounce-megakernel`` |
-      ``fused-shade`` | ``xla-split``
-    * ``intersect`` — ``in-kernel`` (inside a megakernel) |
-      ``allpairs-dynamic`` | ``pallas-clustered`` | ``xla-scan``
-    * ``backward`` (diff only, else None) — ``fused-regen-pre`` |
-      ``fused-regen-kernel`` | ``replay-pallas`` |
-      ``replay-gather-kernel`` | ``generic-xla-replay``
-    * ``volumes`` — ``pallas-broadcast`` | ``pallas`` | ``xla-scan`` |
-      None (no media)
+    * ``intersect`` — ``dense-scan`` (all rows, in [R, C] tiles) |
+      ``bvh`` (per-lane threaded-BVH loop)
+    * ``backward`` (diff only, else None) — ``winner-replay``: the
+      custom-VJP surface hit re-derives the winner's hit, the material
+      math is plain autodiff
+    * ``volumes`` — ``crossing-scan`` | None (no media)
 
-    ``n_pix`` defaults to the settings' full image; ``lanes`` to the
-    lane pool the drivers would use for it.
+    ``n_pix`` defaults to the settings' full image.
     """
-    from ..diff.fused_iter import fused_iter_eligible
-    from ..diff.lane_replay import MAX_REPLAY_PRIMS, replay_eligible
-    from ..ops.pallas.volume_kernel import BCAST_MIN_ROWS
-    from ..render.integrator import (
-        LANE_ALIGN, SORT_MIN_PRIMS, _n_scan_prims, bounce_kernel_eligible,
-        fused_shade_eligible, pallas_eligible,
-    )
-    from ..render.render import _STATIONARY_MIN_PIXELS
+    from ..render import render
 
     if n_pix is None:
         n_pix = int(s.image_width) * int(s.image_height)
-    if lanes is None:
-        lanes = -(-n_pix // LANE_ALIGN) * LANE_ALIGN
-    n_prims = scene.prims.kind.shape[0]
-    use_pallas = pallas_eligible(scene, lanes, interpret=interpret)
-    # forward drivers cap the megakernel at MEGA_MAX_PRIMS_FWD (the
-    # split path wins well below the diff cap since round 5)
-    use_mega = bounce_kernel_eligible(scene, s, lanes, interpret=interpret,
-                                      forward_only=not diff)
 
-    # ---- driver (render/render.py:_stationary_fn) ----
+    # ---- driver (render/render.py) ----
     if diff:
         driver = "diff-wavefront"
-    elif n_pix < _STATIONARY_MIN_PIXELS:
+    elif n_pix < render._STATIONARY_MIN_PIXELS:
         driver = "queue"
     else:
         mesh_volumes = (scene.volumes is not None
                         and scene.volumes.prims.kind.shape[0]
-                        >= BCAST_MIN_ROWS)
-        if (os.environ.get("RT_SORTED_WAVEFRONT", "1") != "0"
-                and (n_prims >= SORT_MIN_PRIMS or mesh_volumes)
+                        >= render.MESH_VOLUME_MIN_ROWS)
+        if ((scene.prims.kind.shape[0] >= render.SORT_MIN_PRIMS
+             or mesh_volumes)
                 and scene.bvh is None):
             driver = "sorted"
         else:
             driver = "stationary"
 
-    # ---- forward bounce engine ----
-    fused_ok = fused_iter_eligible(scene, s, lanes, interpret=interpret,
-                                   need_replay=diff)
-    if fused_ok and driver in ("stationary", "diff-wavefront"):
-        forward = "fused-iter-megakernel"
-    elif use_mega:
-        forward = "bounce-megakernel"
-    elif use_pallas and fused_shade_eligible(scene, s):
-        forward = "fused-shade"
-    else:
-        forward = "xla-split"
+    # ---- intersect (the diff path's custom-VJP hit always scans) ----
+    intersect = "bvh" if (scene.bvh is not None and not diff) \
+        else "dense-scan"
 
-    # ---- intersect engine (integrator._surface_hit) ----
-    if forward == "fused-iter-megakernel":
-        from ..ops.pallas.iter_kernel import resolve_use_ap
-        intersect = ("in-kernel-allpairs"
-                     if resolve_use_ap(_n_scan_prims(scene.prims),
-                                       scene.prims.kind_segments)
-                     else "in-kernel")
-    elif forward == "bounce-megakernel":
-        intersect = "in-kernel"
-    elif use_pallas:
-        from ..ops.pallas.allpairs_kernel import MIN_PRIMS
-        if (not diff and scene.prims.kind_segments is not None
-                and MIN_PRIMS <= _n_scan_prims(scene.prims)):
-            intersect = "allpairs-dynamic"
-        else:
-            intersect = "pallas-clustered"
-    else:
-        intersect = "xla-scan"
-
-    # ---- diff backward (diff/fused_iter.py:f_bwd + mega_bounce) ----
-    backward = None
-    if diff:
-        if forward == "fused-iter-megakernel":
-            if os.environ.get("RT_FUSED_BWD_KERNEL"):
-                backward = "fused-regen-kernel"
-            elif os.environ.get("RT_FUSED_BWD_XLA"):
-                backward = ("replay-pallas"
-                            if n_prims <= MAX_REPLAY_PRIMS
-                            else "replay-gather-kernel")
-            else:
-                # round 5: the pre-gathered regen kernel serves every
-                # fused-eligible scale (replay_pre_eligible)
-                backward = "fused-regen-pre"
-        elif use_mega and replay_eligible(scene):
-            backward = ("replay-pallas" if n_prims <= MAX_REPLAY_PRIMS
-                        else "replay-gather-kernel")
-        else:
-            backward = "generic-xla-replay"
-
-    # ---- volume crossing engine (render/volumes.py) ----
-    volumes = None
-    if scene.volumes is not None:
-        if use_pallas and not diff:
-            nrows = scene.volumes.prims.kind.shape[0]
-            if (nrows >= BCAST_MIN_ROWS
-                    and not os.environ.get("RT_NO_VOL_BCAST")):
-                volumes = "pallas-broadcast"
-            else:
-                volumes = "pallas"
-        else:
-            volumes = "xla-scan"
-
-    return {"driver": driver, "forward": forward, "intersect": intersect,
-            "backward": backward, "volumes": volumes}
+    return {"driver": driver, "intersect": intersect,
+            "backward": "winner-replay" if diff else None,
+            "volumes": "crossing-scan" if scene.volumes is not None
+            else None}

@@ -8,7 +8,7 @@ internal noise: |cornell_redirect - cornell_noisy| averages ~0.015 at
 64px, i.e. two renders of the same scene by the reference itself differ
 by that much.
 
-Usage:  python scenes/parity.py [--quick]     (runs on the TPU by default)
+Usage:  python scenes/parity.py [--quick] [--cpu]   (GPU unless --cpu)
 Prints one JSON line per scene plus a summary verdict.
 """
 import argparse
@@ -86,19 +86,13 @@ def main():
         cmd = [sys.executable, os.path.join(HERE, script), *sargs,
                "--out", out]
         if not args.cpu:
-            cmd.append("--tpu")
+            cmd.append("--gpu")
         if args.quick:
             cmd = [c if c != "200" else "32" for c in cmd]
             cmd = [c if c != "50" else "16" for c in cmd]
-        for attempt in range(3):
-            env = dict(os.environ, RT_SALT=str(attempt))
-            r = subprocess.run(cmd, env=env)
-            if r.returncode == 0:
-                break
-            print(f"  {script}: attempt {attempt} failed (rc={r.returncode}),"
-                  " retrying (transient TPU faults)", flush=True)
-        else:
-            print(f"skip {script}: render failed after retries")
+        r = subprocess.run(cmd)
+        if r.returncode != 0:
+            print(f"skip {script}: render failed (rc={r.returncode})")
             continue
         ours = load(out, size)
         ref = load(ref_path, size)

@@ -55,8 +55,7 @@ def test_ellipsoid_hit_geometry():
     d = np.asarray([0, 0, -5.0]) + 0.6 * g.normal(size=(n, 3))
     d = jnp.asarray(d / np.linalg.norm(d, axis=1, keepdims=True), jnp.float32)
     time = jnp.zeros((n,), jnp.float32)
-    t, idx, normal, front, uv, mat = _surface_hit(scene, s, o, d, time,
-                                                  use_pallas=False)
+    t, idx, normal, front, uv, mat = _surface_hit(scene, s, o, d, time)
     hit = np.isfinite(np.asarray(t))
     assert hit.sum() > 20
     p = np.asarray(o + t[:, None] * d)[hit]
@@ -95,8 +94,7 @@ def test_ellipsoid_nearest_vs_prims():
     d = jnp.asarray([[0, 0, -1.0], [0.6, 0.1, -1.0]], jnp.float32)
     d = d / jnp.linalg.norm(d, axis=1, keepdims=True)
     time = jnp.zeros((2,), jnp.float32)
-    t, idx, normal, front, uv, mat = _surface_hit(scene, s, o, d, time,
-                                                  use_pallas=False)
+    t, idx, normal, front, uv, mat = _surface_hit(scene, s, o, d, time)
     assert int(idx[0]) <= -2          # straight ray hits the ellipsoid
     assert int(idx[1]) >= 0           # oblique ray misses it, hits the quad
     assert abs(float(t[0]) - 4.5) < 1e-3   # z extent 0.5 around z=-5
@@ -139,7 +137,7 @@ def test_ellipsoid_render_and_gradient():
     def mean_t(radius):
         sc = scene.replace(ellipsoids=scene.ellipsoids.replace(
             radius=radius))
-        t, *_ = _surface_hit(sc, s, o, d, time, use_pallas=False)
+        t, *_ = _surface_hit(sc, s, o, d, time)
         return jnp.mean(jnp.where(jnp.isfinite(t), t, 0.0))
 
     g_t = jax.grad(lambda r: mean_t(r))(scene.ellipsoids.radius)

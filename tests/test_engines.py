@@ -1,12 +1,7 @@
 """Engine-selection observability: the report must match the drivers'
-actual choices per scene class (VERDICT r4 weak #7 — silent fallbacks
-cost 10-40x and must be visible/assertable)."""
-import sys
-
-import jax
-import jax.numpy as jnp
+actual choices per scene class (silent fallbacks must be visible and
+assertable)."""
 import numpy as np
-import pytest
 
 import raytrace_tpu as rt
 from raytrace_tpu.utils.engines import engine_report
@@ -26,7 +21,7 @@ def _cornell_like():
 
 
 def _mesh_scene(n=300):
-    """Triangle soup big enough for cluster machinery, <= 8192 rows."""
+    """Triangle soup big enough for kind segmentation, < 8192 rows."""
     rs = np.random.RandomState(0)
     p0 = rs.uniform(-1, 1, (n, 3))
     tris = [rt.triangle(p, p + [0.1, 0, 0], p + [0, 0.1, 0]) for p in p0]
@@ -52,85 +47,59 @@ _CAM = rt.CameraSettings(image_width=256, samples_per_pixel=4, max_depth=4,
 
 def test_cornell_class_engines():
     scene = _cornell_like()
-    rep = engine_report(scene, _CAM, interpret=True)
-    assert rep["driver"] == "stationary"
-    assert rep["forward"] == "fused-iter-megakernel"
-    assert rep["intersect"] == "in-kernel"
-    assert rep["backward"] is None and rep["volumes"] is None
-    # diff path: small table -> pre-gathered regen backward kernel
-    rep_d = engine_report(scene, _CAM, diff=True, interpret=True)
+    rep = engine_report(scene, _CAM)
+    assert rep == {"driver": "stationary", "intersect": "dense-scan",
+                   "backward": None, "volumes": None}
+    rep_d = engine_report(scene, _CAM, diff=True)
     assert rep_d["driver"] == "diff-wavefront"
-    assert rep_d["forward"] == "fused-iter-megakernel"
-    assert rep_d["backward"] == "fused-regen-pre"
+    assert rep_d["backward"] == "winner-replay"
 
 
-def test_mesh_class_engines():
+def test_mesh_class_engines(monkeypatch):
     scene = _mesh_scene()
-    rep = engine_report(scene, _CAM, interpret=True)
-    # 300 rows: below SORT_MIN_PRIMS -> stationary; megakernel serves
+    rep = engine_report(scene, _CAM)
+    # 300 rows: below SORT_MIN_PRIMS -> stationary dense scan
     assert rep["driver"] == "stationary"
-    assert rep["forward"] == "fused-iter-megakernel"
-    # diff path at >64 prims (round 5): the fused driver + the
-    # pre-gathered regen backward serve mesh scale too
-    rep_d = engine_report(scene, _CAM, diff=True, interpret=True)
-    assert rep_d["backward"] == "fused-regen-pre"
-    assert rep_d["forward"] == "fused-iter-megakernel"
+    assert rep["intersect"] == "dense-scan"
+    # the report follows the driver threshold it mirrors
+    from raytrace_tpu.render import render as render_mod
+    monkeypatch.setattr(render_mod, "SORT_MIN_PRIMS", 8)
+    assert engine_report(scene, _CAM)["driver"] == "sorted"
 
 
-def test_mesh_class_engines_kernel_env(monkeypatch):
-    monkeypatch.setenv("RT_FUSED_BWD_KERNEL", "1")
-    scene = _mesh_scene()
-    rep_d = engine_report(scene, _CAM, diff=True, interpret=True)
-    assert rep_d["backward"] == "fused-regen-kernel"
+def test_bvh_class_engines():
+    scene = rt.compile_scene(
+        rt.with_material(rt.lambertian(rt.constant_texture(0.5)),
+                         rt.group([rt.sphere([i, 0, -5], 0.4)
+                                   for i in range(8)])), accel="bvh")
+    rep = engine_report(scene, _CAM)
+    assert rep["intersect"] == "bvh"
+    assert rep["driver"] == "stationary"       # the sorted driver is dense
+    # the diff path's custom-VJP hit always scans the table
+    assert engine_report(scene, _CAM, diff=True)["intersect"] == "dense-scan"
 
 
 def test_fog_class_engines():
     scene = _fog_scene()
-    rep = engine_report(scene, _CAM, interpret=True)
-    # volumes make the scene megakernel-ineligible
-    assert rep["forward"] in ("fused-shade", "xla-split")
-    assert rep["volumes"] in ("pallas", "pallas-broadcast")
-    rep_d = engine_report(scene, _CAM, diff=True, interpret=True)
-    assert rep_d["volumes"] == "xla-scan"
-    assert rep_d["backward"] == "generic-xla-replay"
+    rep = engine_report(scene, _CAM)
+    assert rep["volumes"] == "crossing-scan"
+    rep_d = engine_report(scene, _CAM, diff=True)
+    assert rep_d["volumes"] == "crossing-scan"
+    assert rep_d["backward"] == "winner-replay"
 
 
 def test_queue_driver_small_images():
     scene = _cornell_like()
     s = _CAM.replace(image_width=64)     # 4096 px < stationary minimum
-    rep = engine_report(scene, s, interpret=True)
+    rep = engine_report(scene, s)
     assert rep["driver"] == "queue"
 
 
 def test_engines_ride_render_stats():
     scene = _cornell_like()
     st = RenderStats()
-    rep = st.record_engines(scene, _CAM, interpret=True)
+    rep = st.record_engines(scene, _CAM)
     st.add_launch(dict(segments=10, iterations=1, lanes=128), 4, 0.1)
     rec = st.record()
     assert rec["engines"] == rep
-    assert rec["engines"]["forward"] == "fused-iter-megakernel"
-
-
-def test_report_tracks_no_fused_env(monkeypatch):
-    monkeypatch.setenv("RT_NO_FUSED_ITER", "1")
-    scene = _cornell_like()
-    rep = engine_report(scene, _CAM, interpret=True)
-    assert rep["forward"] == "bounce-megakernel"
-
-
-def test_forward_cap_splits_forward_and_diff_engines():
-    """Round 5: forward drivers cap the megakernel at MEGA_MAX_PRIMS_FWD
-    (the split path wins at mesh scale — bunny 2.75 vs 9.92 s) while the
-    diff driver keeps the megakernel up to MEGA_MAX_PRIMS."""
-    scene = _mesh_scene(n=700)           # > 512 rows after padding
-    assert scene.prims.kind.shape[0] > 512
-    rep_f = engine_report(scene, _CAM, interpret=True)
-    assert rep_f["forward"] in ("fused-shade", "xla-split")
-    assert rep_f["intersect"] in ("allpairs-dynamic", "pallas-clustered")
-    rep_d = engine_report(scene, _CAM, diff=True, interpret=True)
-    assert rep_d["forward"] == "fused-iter-megakernel"
-    assert rep_d["backward"] == "fused-regen-pre"
-    # >512 rows: the fused kernel's intersect stage is the in-kernel
-    # broadcast all-pairs sweep (RT_ITER_AP_MIN default)
-    assert rep_d["intersect"] == "in-kernel-allpairs"
+    assert rec["engines"]["intersect"] == "dense-scan"

@@ -97,8 +97,7 @@ def test_box_hit_t_gradient_matches_fd():
     scene = rt.compile_scene(world)
     assert scene.prims.has_box
     p = scene.prims
-    hit_fn = make_diff_surface_hit(p.has_motion, 1e-3, use_pallas=False,
-                                   has_box=p.has_box)
+    hit_fn = make_diff_surface_hit(p.has_motion, 1e-3, has_box=p.has_box)
     rng_ = np.random.default_rng(3)
     r = 64
     o = jnp.asarray(np.concatenate(
@@ -264,7 +263,7 @@ def test_wavefront_diff_skip_done_matches_and_completes():
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    rtol=1e-6, atol=1e-8)
     # generous bound (spp * max_depth is the hard worst case) completes
-    # everything; cond-skip makes the unused tail ~free on TPU
+    # everything; cond-skip skips the unused tail
     (l2, f2), g2 = vg(params, statics, s, key, pix, target, spp=16,
                       n_iters=16 * 6 + 2, skip_done=True)
     assert float(f2) == 1.0

@@ -1,7 +1,7 @@
 """Integrator physics tests: closed-form light transport checks.
 
 The reference has no unit tests (SURVEY.md §4); these are the
-golden-physics tests the TPU build adds: energy conservation, material
+golden-physics tests this build adds: energy conservation, material
 behaviour, MIS unbiasedness.
 """
 import jax

@@ -65,17 +65,55 @@ def test_errors_with_line_numbers(text, msg):
     assert "line " in str(e.value)
 
 
-def test_read_reference_pawn():
-    # real asset exercised by the reference suite (test/Main.hs:323-344)
-    m = read_obj("/root/reference/images/pawn.obj")
+def _mesh_obj_text(n_verts: int, n_faces: int, seed: int) -> str:
+    """Seeded .obj text with the vertex/face counts of a reference asset:
+    a header comment, ``v``/``vt``/``vn`` lines, a group and smoothing
+    line, and triangles in the three face-vertex forms (``i``, ``i/t``,
+    ``i//n``)."""
+    rng = np.random.default_rng(seed)
+    lines = ["# generated mesh", "g mesh", "s 1"]
+    for x, y, z in rng.uniform(-1, 1, (n_verts, 3)):
+        lines.append(f"v {x:.6f} {y:.6f} {z:.6f}")
+    for u, v in rng.uniform(0, 1, (n_verts, 2)):
+        lines.append(f"vt {u:.6f} {v:.6f}")
+    lines.append("vn 0 0 1")
+    faces = rng.integers(1, n_verts + 1, (n_faces, 3))
+    for k, (a, b, c) in enumerate(faces):
+        form = k % 3
+        if form == 0:
+            lines.append(f"f {a} {b} {c}")
+        elif form == 1:
+            lines.append(f"f {a}/{a} {b}/{b} {c}/{c}")
+        else:
+            lines.append(f"f {a}//1 {b}//1 {c}//1")
+    return "\n".join(lines) + "\n"
+
+
+# vertex/face counts of the reference's pawn and bunny assets
+# (test/Main.hs:323-344)
+_ASSETS = {"pawn": (602, 1200, 1), "bunny": (2503, 4968, 2)}
+
+
+def _asset_file(tmp_path, name):
+    n_verts, n_faces, seed = _ASSETS[name]
+    path = tmp_path / f"{name}.obj"
+    path.write_text(_mesh_obj_text(n_verts, n_faces, seed))
+    return str(path)
+
+
+def test_read_reference_pawn(tmp_path):
+    m = read_obj(_asset_file(tmp_path, "pawn"))
     assert m.vertices.shape[0] == 602
     assert m.faces.shape[0] == 1200
 
 
-def test_read_reference_bunny():
-    m = read_obj("/root/reference/images/bunny.obj")
+def test_read_reference_bunny(tmp_path):
+    m = read_obj(_asset_file(tmp_path, "bunny"))
     assert m.vertices.shape[0] == 2503
     assert m.faces.shape[0] == 4968
+    # every third face carries vt indices, the rest none
+    assert (m.uv_faces[1::3] >= 0).all()
+    assert (m.uv_faces[0::3] == -1).all()
 
 
 def test_transform_vertices_and_bbox():
@@ -145,10 +183,9 @@ def test_native_errors_match_python(text):
 
 
 @pytestmark_native
-@pytest.mark.parametrize("path", ["/root/reference/images/pawn.obj",
-                                  "/root/reference/images/bunny.obj"])
-def test_native_matches_python_on_reference_assets(path):
-    with open(path) as f:
+@pytest.mark.parametrize("name", ["pawn", "bunny"])
+def test_native_matches_python_on_reference_assets(tmp_path, name):
+    with open(_asset_file(tmp_path, name)) as f:
         text = f.read()
     mn, mp = _both(text)
     np.testing.assert_array_equal(mn.vertices, mp.vertices)

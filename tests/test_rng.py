@@ -127,7 +127,7 @@ def test_uniform_block_pairwise_uniformity():
 
 
 def test_threefry_fallback_switch(monkeypatch):
-    """RT_RNG_THREEFRY routes uniform_block through the threefry stream."""
+    """USE_THREEFRY routes uniform_block through the threefry stream."""
     n = 128
     keys = rng.ray_keys_fast(rng.base_key(1),
                              jnp.arange(n, dtype=jnp.int32),

@@ -114,51 +114,6 @@ def test_uv_random_directions_all_axes():
                 uv, _expected_uv(outward, rot_w2o), atol=1e-4)
 
 
-def test_pallas_interpret_matches_xla():
-    from raytrace_tpu.ops.pallas.intersect_kernel import (
-        pack_clusters, pack_prims, pallas_nearest_record,
-    )
-    scene = _rot_scene()
-    n = 128
-    rng = np.random.default_rng(3)
-    o = jnp.zeros((n, 3), jnp.float32)
-    d = np.tile(CENTER, (n, 1)) + 0.5 * rng.normal(size=(n, 3))
-    d = jnp.asarray(d / np.linalg.norm(d, axis=-1, keepdims=True),
-                    jnp.float32)
-    time = jnp.zeros((n,), jnp.float32)
-
-    t_ref, i_ref = nearest_hit_t(scene.prims, None, o, d, time,
-                                 jnp.full((n,), 1e-4),
-                                 jnp.full((n,), jnp.inf))
-    rec = make_hit_record(scene.prims, i_ref, o, d, time,
-                          jnp.where(jnp.isfinite(t_ref), t_ref, 1.0))
-
-    resh = lambda x: x.reshape(1, 128)
-    tbl = pack_prims(scene.prims)
-    ctbl = pack_clusters(scene.prims)
-    t, idx, nx, ny, nz, fr, uu, vv, mat = pallas_nearest_record(
-        tbl, ctbl, resh(o[:, 0]), resh(o[:, 1]), resh(o[:, 2]),
-        resh(d[:, 0]), resh(d[:, 1]), resh(d[:, 2]), resh(time),
-        n_prims=scene.prims.kind.shape[0], t_min=1e-4,
-        has_motion=False, interpret=True)
-    # the _surface_hit post-pass: outward normal -> object space -> uv
-    flat = lambda x: np.asarray(x).reshape(n)
-    front = (flat(fr) & 1).astype(bool)
-    normal = jnp.stack([jnp.asarray(flat(nx)), jnp.asarray(flat(ny)),
-                        jnp.asarray(flat(nz))], axis=-1)
-    outward = normal * jnp.where(jnp.asarray(front), 1.0, -1.0)[:, None]
-    outward = apply_sphere_rotations(
-        outward, jnp.asarray(flat(idx)), scene.prims.sphere_rots)
-    su = np.arctan2(np.asarray(outward[:, 0]),
-                    np.asarray(outward[:, 2])) / (2 * np.pi) + 0.5
-    sv = np.arccos(np.clip(-np.asarray(outward[:, 1]), -1, 1)) / np.pi
-    hit = np.isfinite(flat(t))
-    np.testing.assert_allclose(su[hit], np.asarray(rec.uv[:, 0])[hit],
-                               atol=1e-4)
-    np.testing.assert_allclose(sv[hit], np.asarray(rec.uv[:, 1])[hit],
-                               atol=1e-4)
-
-
 def test_diff_path_matches():
     from raytrace_tpu.ops.diff_intersect import make_diff_surface_hit
     scene = _rot_scene()
@@ -170,8 +125,7 @@ def test_diff_path_matches():
     d = jnp.asarray(d / np.linalg.norm(d, axis=-1, keepdims=True),
                     jnp.float32)
     time = jnp.zeros((n,), jnp.float32)
-    hit_fn = make_diff_surface_hit(False, 1e-4, use_pallas=False,
-                                   has_box=p.has_box,
+    hit_fn = make_diff_surface_hit(False, 1e-4, has_box=p.has_box,
                                    sphere_rots=p.sphere_rots)
     t, idx, normal, front, uv, mat = hit_fn(
         (p.p0, p.e1, p.e2, p.uvs, p.mv0, p.mv1),

@@ -90,8 +90,9 @@ def test_sharded_train_step_descends():
     sc = perturbed
     opt_state = step.init(sc)
     for i in range(12):
-        loss, sc, opt_state = step.with_state(sc, opt_state, key, pix,
-                                              samp, target)
+        loss, sc, opt_state, frac = step.with_state(sc, opt_state, key,
+                                                    pix, samp, target)
+        assert float(frac) == 1.0
         losses.append(float(loss))
     assert np.isfinite(losses).all()
     assert min(losses[1:]) < losses[0]

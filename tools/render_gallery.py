@@ -4,7 +4,10 @@ the full capability surface; compare with the PNGs in /root/reference).
 Moderate settings (not the full reference spp) — these are eyeball
 artifacts, PARITY.md holds the statistical comparisons.
 
-Usage: python tools/render_gallery.py [--cpu]
+Each scene renders in its own process, one after the other, so only one
+process holds the device at a time.
+
+Usage: python tools/render_gallery.py [--cpu]     (GPU unless --cpu)
 """
 import os
 import subprocess
@@ -39,17 +42,10 @@ def main():
         cmd = [sys.executable, os.path.join(REPO, "scenes", script), *sargs,
                "--out", out]
         if not cpu:
-            cmd.append("--tpu")
-        for attempt in range(4):
-            env = dict(os.environ, RT_SALT=str(attempt))
-            r = subprocess.run(cmd, env=env)
-            if r.returncode == 0:
-                print(f"rendered {name}", flush=True)
-                break
-            print(f"  {script}: attempt {attempt} failed, retrying",
-                  flush=True)
-        else:
-            print(f"FAILED {script}", flush=True)
+            cmd.append("--gpu")
+        r = subprocess.run(cmd)
+        print(f"rendered {name}" if r.returncode == 0 else f"FAILED {script}",
+              flush=True)
 
 
 if __name__ == "__main__":
